@@ -1,8 +1,8 @@
-"""ngsld_tpu — TPU-native linkage-disequilibrium engine.
+"""ngsld_tpu — GPU linkage-disequilibrium engine.
 
 A from-scratch JAX/XLA/Pallas rebuild with the full capability surface of
 fgvieira/ngsLD v1.2.1 (pairwise LD from genotype likelihoods), designed for
-TPU meshes rather than pthread pools.
+device meshes rather than pthread pools.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Values mirror the reference's compile-time constants
 (/root/reference/shared/gen_func.hpp:14-18) so that both the strict oracle
-engine and the TPU engine reproduce the reference's output contract.
+engine and the device engine reproduce the reference's output contract.
 """
 
 N_GENO = 3          # genotypes {AA, Aa, aa}            (gen_func.hpp:14)

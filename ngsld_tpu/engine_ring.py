@@ -5,13 +5,13 @@ from __future__ import annotations
 import functools
 import math
 import os
-import time
 
 import numpy as np
 
 from . import strict
 from .checkpoint import _RingSpill
-from .engine_block import StripCompileError, _chi2_host, _stats_host
+from .compute import device_bytes_limit
+from .engine_block import _chi2_host, _stats_host
 from .loaders import _ring_sharded_tables
 
 
@@ -20,7 +20,7 @@ class RingNarrowBand(RuntimeError):
     is too narrow for the ring's rectangle steps: the band fits inside ONE
     step's partner sub-block, so most rectangle lanes would be dead and
     the replicated-table block engine is strictly better. run_jax catches
-    this and reruns on the block engine (VERDICT r3 item 6)."""
+    this and reruns on the block engine."""
 
     def __init__(self, mean_w: float, b_sub: int):
         super().__init__(
@@ -40,8 +40,7 @@ def _local_blocks(arr, B: int):
     return out
 
 
-def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
-                  touch=lambda: None, hold=None):
+def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir):
     """Site-sharded ring sweep driver (--ring).
 
     The replicated-table engine (_run_jax_body) assumes the GL/E[G] tables
@@ -61,17 +60,14 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
     Host memory is O(emitted rows), not O(n_steps * S * B) tiles; device
     memory is O(table/n_dev + B*B_sub stats) per device (size the mesh so
     B = S/n_dev stays ~10^4). Rows are emitted per resident block in
-    (s1, s2) order — on a multi-host pod every host runs the same program
-    (collectives ride ICI/DCN) and writes the shard holding its own
-    blocks' rows.
+    (s1, s2) order — on a multi-host cluster every host runs the same
+    program and writes the shard holding its own blocks' rows.
 
     With --checkpoint the sweep is resumable at (sub-ring, ring step)
     granularity (_RingSpill): completed steps' tiles feed the merge from
     disk and the visiting state fast-forwards via an offset ppermute
     (the reference has no resume at all, SURVEY.md §5).
     """
-    import contextlib
-    hold = hold or contextlib.nullcontext
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding
@@ -110,50 +106,27 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
         B = -(-n // n_dev)
         # sub-block ring: visiting state rotates B_sub-row sub-blocks so the
         # per-step stat tile is (B, B_sub) — a full (B, B) tile would not
-        # fit device memory at pod scale, and narrow bands waste less
+        # fit device memory at scale, and narrow bands waste less
         # out-of-band compute. 0 = auto: ~4k sites per sub-block AND a cap
-        # on the per-step tile AREA (the stat planes + compaction gather
-        # cost tens of bytes per CELL on device; a degenerate few-device
-        # ring makes B huge, e.g. 100k sites on 1 device = 4e8 cells at
-        # B_sub=4096 — past HBM). NGSLD_RING_AREA overrides the cap.
-        # default sized for a 16 GB chip: the per-step transient peak is
-        # roughly 70-80 B/cell (kernel stat outputs + rearrange copies +
-        # the compaction gather), so 6e7 cells keeps it under ~5 GB
-        area_cap = int(os.environ.get("NGSLD_RING_AREA", 60_000_000))
+        # on the per-step tile AREA: the per-step transient peak is roughly
+        # 70-80 B per cell (stat planes + rearrange copies + the compaction
+        # gather), so the cap keeps it near 30% of device memory (a
+        # degenerate few-device ring makes B huge, e.g. 100k sites on 1
+        # device = 4e8 cells at B_sub=4096). NGSLD_RING_AREA overrides it;
+        # backends that report no memory limit use 6e7 cells.
+        mem = device_bytes_limit()
+        area_cap = int(os.environ.get(
+            "NGSLD_RING_AREA", int(0.3 * mem / 80) if mem else 60_000_000))
         n_sub = getattr(pars, "ring_sub", 0) or max(
             1, -(-B // 4096), -(-(B * B) // area_cap))
         n_sub = min(n_sub, B)
-        # Strip-kernel stepper (kernels/pallas_strip): the per-step tile
-        # computes in VMEM with per-anchor early exit + in-kernel band
-        # bounds — the ring's fast path on TPU (f32). NGSLD_FORCE_STRIP=1
-        # forces it elsewhere (interpret mode; f32-grade values) for
-        # tests. Needs B/B_sub aligned to the 128-lane tile quanta.
-        from .kernels.pallas_strip import TA as _TA
-        force_strip = os.environ.get("NGSLD_FORCE_STRIP") == "1"
-        # any cohort size: past the VMEM-resident limit strip_em streams
-        # the individual axis (pallas_strip.strip_streamed)
-        use_strip = n_is == 1 and (
-            force_strip or (jax.default_backend() == "tpu"
-                            and prec == "f32"))
-        if os.environ.get("NGSLD_NO_STRIP") == "1":   # run_jax retry
-            use_strip = False
-        # tier classification keys on the precision of the values the
-        # STEPPER produces: the strip kernel is f32 even when the run
-        # precision is f64 (NGSLD_FORCE_STRIP on CPU), so its fragile
-        # band must be repaired as f32 output or knife-edge Dp/r2 ship
-        # f32 garbage unrepaired
-        tier_prec = "f32" if use_strip else prec
-        if use_strip:
-            B = -(-B // (n_sub * _TA)) * (n_sub * _TA)
-        else:
-            B = -(-B // n_sub) * n_sub   # sub-blocks must divide the block
+        B = -(-B // n_sub) * n_sub   # sub-blocks must divide the block
         B_sub = B // n_sub
 
         # narrow-band auto-route: a band that fits inside ONE ring step's
         # partner sub-block leaves most rectangle lanes dead (the step EM
         # computes every lane of a live batch) — the block engine wins
-        # outright there (PERF.md round 3: 137.5 s ring vs block parity on
-        # a narrow-band CPU mesh). Exempt: multi-host (the block engine is
+        # outright there. Exempt: multi-host (the block engine is
         # single-host), an explicit --ring_sub (the user is hand-tuning
         # the ring), a resumed ring checkpoint, tables too big to
         # replicate per device, NGSLD_RING_AUTOROUTE=0.
@@ -169,8 +142,11 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                         ring_ckpt = _json.load(fh).get("mode") == "ring"
                 except Exception:
                     ring_ckpt = True   # unreadable: don't reroute blindly
+            # tables replicable per device: at most a quarter of its
+            # memory (4e9 B where the backend reports no limit)
             tbl_bytes = float(pars.n_sites) * pars.n_ind * 16.0
-            mem_cap = float(os.environ.get("NGSLD_AUTOROUTE_MEM", "4e9"))
+            mem_cap = float(os.environ.get(
+                "NGSLD_AUTOROUTE_MEM", 0.25 * mem if mem else 4e9))
             if not ring_ckpt and tbl_bytes <= mem_cap:
                 hi_r = band_limits(pos_dist, pars.max_kb_dist,
                                    pars.max_snp_dist)
@@ -184,7 +160,7 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
         np_dt = np.float64 if prec == "f64" else np.float32
         with log.phase("Reading data from file (site-sharded stream)"):
             gl_d, raw_gl = _ring_sharded_tables(
-                pars, mesh, n_dev, B, Sp, np_dt, log, touch=touch, hold=hold)
+                pars, mesh, n_dev, B, Sp, np_dt, log)
         with log.phase("Preprocessing (site-sharded) on device"):
             pre = jax.jit(functools.partial(
                 preprocess, call=pars.call_geno, N_thresh=pars.N_thresh,
@@ -192,22 +168,20 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                 ignore_miss_data=pars.ignore_miss_data,
                 raw=raw_gl, in_log=pars.in_logscale),
                 # free the log-GL table as the normalized tables build:
-                # device memory is the ring's scarce resource (CPU ignores
-                # donation, so only donate where it works)
-                donate_argnums=(0,) if jax.default_backend() == "tpu"
+                # device memory is the ring's scarce resource (the CPU
+                # backend ignores donation, so only donate off the CPU)
+                donate_argnums=(0,) if mesh.devices.flat[0].platform != "cpu"
                 else ())
-            with hold():
-                gn_d, maf_d, eg_d = pre(gl_d)
-                del gl_d
-                if jax.process_count() == 1:
-                    maf = np.array(maf_d, np.float64)[:n]
-                else:
-                    # masks need GLOBAL MAFs (partner blocks live on other
-                    # hosts); allgather the (tiny) vector over DCN
-                    from jax.experimental import multihost_utils
-                    maf = np.array(multihost_utils.process_allgather(
-                        maf_d, tiled=True), np.float64)[:n]
-            touch()
+            gn_d, maf_d, eg_d = pre(gl_d)
+            del gl_d
+            if jax.process_count() == 1:
+                maf = np.array(maf_d, np.float64)[:n]
+            else:
+                # masks need GLOBAL MAFs (partner blocks live on other
+                # hosts); allgather the (tiny) vector
+                from jax.experimental import multihost_utils
+                maf = np.array(multihost_utils.process_allgather(
+                    maf_d, tiled=True), np.float64)[:n]
 
         from .refine import (StrictRefiner, degenerate_tiers,
                              knife_edge_sites)
@@ -300,15 +274,11 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
             spill_dir = tmp_spill.name
         spill = _RingSpill(
             spill_dir, pars,
-            # strip= pins WHICH stepper produced the spilled tiles: the
-            # strip kernel's f32 values differ in the last ulps from the
-            # XLA stepper's, so a resume must not mix them silently
             # cols= versions the spilled record layout: slim-v2 stores only
             # (a, pj, r2p, f, n_iter, n_used) and derives the rest at merge
-            # — resumes against round-3 full-stat spills must be rejected
+            # — resumes against older full-stat spills must be rejected
             dict(mode="ring", n_dev=n_dev, n_sub=n_sub, block=B,
-                 n_proc=jax.process_count(), strip=bool(use_strip),
-                 n_is=n_is, cols="slim-v2"),
+                 n_proc=jax.process_count(), n_is=n_is, cols="slim-v2"),
             jax.process_index(), persistent)
         rck = spill if persistent else None
 
@@ -323,46 +293,25 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
             sample=pars.rnd_sample < 1.0,
             slim_im=not pars.ignore_miss_data,
             use_i16=pars.n_ind <= 32767)
-        with hold():
-            shd1 = NamedSharding(mesh, PS("sites"))
-            hip = np.zeros(Sp, np.int32)
-            hip[:n] = hi
-            okp = np.zeros(Sp, np.float32)
-            okp[:n] = ok
-            hi_d = jax.device_put(hip, shd1)
-            ok_d = jax.device_put(okp, shd1)
-        touch()
-        if use_strip:
-            from .kernels.pallas_strip import strip_tables
-            from .parallel.ring import (ring_subblock_taker_strip,
-                                        ring_sweep_stepper_strip)
-            from .kernels.pallas_strip import strip_i_align
-            with log.phase("Building strip tables (sharded)"), hold():
-                ga_d, gb_d, ea_d, eb_d = jax.jit(functools.partial(
-                    strip_tables, n_ind=pars.n_ind,
-                    i_align=strip_i_align(pars.n_ind)))(gn_d, eg_d)
-                del gn_d, eg_d   # the strip layouts replace them
-            touch()
-            stepper = ring_sweep_stepper_strip(
-                mesh, pars.n_ind, B, B_sub, pars.ignore_miss_data,
-                pars.extend_out,
-                interpret=jax.default_backend() != "tpu",
-                compact_cfg=compact_cfg)
-            log.log(2, f"==> ring: strip-kernel stepper "
-                       f"({B // 128}x{B_sub // 128} tiles/step/device)")
+        shd1 = NamedSharding(mesh, PS("sites"))
+        hip = np.zeros(Sp, np.int32)
+        hip[:n] = hi
+        okp = np.zeros(Sp, np.float32)
+        okp[:n] = ok
+        hi_d = jax.device_put(hip, shd1)
+        ok_d = jax.device_put(okp, shd1)
+        # row_chunk bounds the XLA stepper's peak memory to 256 anchor
+        # strips of EM intermediates while still vmapping (scan-per-anchor
+        # would be ~256x more dispatches)
+        if n_is > 1:
+            from .parallel.ring import ring_sweep_stepper_ind
+            stepper = ring_sweep_stepper_ind(
+                mesh, pars.ignore_miss_data, pars.extend_out,
+                row_chunk=256, compact_cfg=compact_cfg)
         else:
-            # row_chunk bounds the XLA stepper's peak memory to 256
-            # anchor strips of EM intermediates while still vmapping
-            # (scan-per-anchor would be ~256x more dispatches)
-            if n_is > 1:
-                from .parallel.ring import ring_sweep_stepper_ind
-                stepper = ring_sweep_stepper_ind(
-                    mesh, pars.ignore_miss_data, pars.extend_out,
-                    row_chunk=256, compact_cfg=compact_cfg)
-            else:
-                stepper = ring_sweep_stepper(
-                    mesh, pars.ignore_miss_data, pars.extend_out,
-                    row_chunk=256, compact_cfg=compact_cfg)
+            stepper = ring_sweep_stepper(
+                mesh, pars.ignore_miss_data, pars.extend_out,
+                row_chunk=256, compact_cfg=compact_cfg)
         writer = RowWriter(out_fh, labels, pars.extend_out)
         if jax.process_index() == 0:
             # multi-host shards concatenate in part order; only the first
@@ -414,7 +363,6 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
         from .parallel.ring import ring_subblock_taker_ind as _rsti
         from .utils.signals import GracefulStop
         interrupted = False
-        strip_step_ok = False
         with log.phase("compute: ring sweep"), GracefulStop(log) as gs:
             for si in range(n_sub):
                 if interrupted:
@@ -429,7 +377,7 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                 if rck is not None:
                     # resume: steps commit in order, so the first missing
                     # one is where the interrupted sweep stopped. On a
-                    # multi-host pod the hosts may have died at different
+                    # multi-host cluster the hosts may have died at different
                     # points; every host must run the SAME collective
                     # sequence, so they agree on the minimum resume step
                     # (hosts that committed further simply recompute and
@@ -450,17 +398,9 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                                    f"at step {t0}/{t_max}")
                 if t0 >= t_max:
                     continue
-                with hold():
-                    if use_strip:
-                        vis = ring_subblock_taker_strip(
-                            mesh, n_sub, si, offset=t0)(
-                                gb_d, eb_d, maf_d, ok_d)
-                    else:
-                        taker = (ring_subblock_taker if n_is == 1
-                                 else _rsti)
-                        vis = taker(
-                            mesh, n_sub, si, offset=t0, with_ok=True)(
-                                gn_d, eg_d, maf_d, ok_d)
+                taker = ring_subblock_taker if n_is == 1 else _rsti
+                vis = taker(mesh, n_sub, si, offset=t0, with_ok=True)(
+                    gn_d, eg_d, maf_d, ok_d)
                 for t in range(t0, t_max):
                     stop = gs.stopped
                     if jax.process_count() > 1:
@@ -489,37 +429,19 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                             return rows.get(
                                 i0, np.zeros(CAPW, np.uint32))[None]
 
-                        with hold():
-                            extra = [jax.make_array_from_callback(
-                                (n_dev, CAPW), bits_shd, _bits_cb)]
-                        touch()
-                    with hold():
-                        if use_strip:
-                            try:
-                                res, *vis = stepper(
-                                    ga_d, ea_d, hi_d, ok_d, maf_d, *vis,
-                                    jnp.int32(t), jnp.int32(si), *extra)
-                            except Exception as e:
-                                if not strip_step_ok:
-                                    raise StripCompileError(
-                                        "strip-kernel ring stepper failed "
-                                        "on its first step (compile/"
-                                        "legalization?)") from e
-                                raise
-                            strip_step_ok = True
-                        else:
-                            res, *vis = stepper(
-                                gn_d, eg_d, maf_d, hi_d, ok_d, *vis,
-                                jnp.int32(t), jnp.int32(si), *extra)
-                        vis = tuple(vis)
-                        fm_g, im_g, cnt_g = res
-                        fm_sh = {(s.index[0].start or 0): s.data
-                                 for s in fm_g.addressable_shards}
-                        im_sh = {(s.index[0].start or 0): s.data
-                                 for s in im_g.addressable_shards}
-                        cnt_sh = {(s.index[0].start or 0): s.data
-                                  for s in cnt_g.addressable_shards}
-                    touch()
+                        extra = [jax.make_array_from_callback(
+                            (n_dev, CAPW), bits_shd, _bits_cb)]
+                    res, *vis = stepper(
+                        gn_d, eg_d, maf_d, hi_d, ok_d, *vis,
+                        jnp.int32(t), jnp.int32(si), *extra)
+                    vis = tuple(vis)
+                    fm_g, im_g, cnt_g = res
+                    fm_sh = {(s.index[0].start or 0): s.data
+                             for s in fm_g.addressable_shards}
+                    im_sh = {(s.index[0].start or 0): s.data
+                             for s in im_g.addressable_shards}
+                    cnt_sh = {(s.index[0].start or 0): s.data
+                              for s in cnt_g.addressable_shards}
                     step_rows = {}
                     for i in my_blocks:
                         valid, _ = masks[i]
@@ -528,18 +450,16 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                         if live == 0:
                             step_rows[i] = None
                             continue
-                        with hold():
-                            # device/host mask agreement check is free:
-                            # the device count rides the (tiny) cnt pull
-                            dev_live = int(np.asarray(cnt_sh[i])[0])
-                            if dev_live != live:
-                                raise AssertionError(
-                                    f"ring compact mismatch: device "
-                                    f"{dev_live} vs host {live} rows "
-                                    f"(block {i}, si {si}, t {t})")
-                            fm = np.asarray(fm_sh[i][0, :live])
-                            im = np.asarray(im_sh[i][0, :live])
-                        touch()
+                        # device/host mask agreement check is free: the
+                        # device count rides the (tiny) cnt pull
+                        dev_live = int(np.asarray(cnt_sh[i])[0])
+                        if dev_live != live:
+                            raise AssertionError(
+                                f"ring compact mismatch: device "
+                                f"{dev_live} vs host {live} rows "
+                                f"(block {i}, si {si}, t {t})")
+                        fm = np.asarray(fm_sh[i][0, :live])
+                        im = np.asarray(im_sh[i][0, :live])
                         # spill rows stay slim on disk too: int32 labels
                         # (site indices < 2^31 at any supported scale),
                         # n_iter as pulled, and NO n_used column when it
@@ -588,7 +508,7 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                     t1s = set()
                     for x in mms:
                         tt = degenerate_tiers(np.asarray(x["f"]),
-                                              tier_prec)
+                                              prec)
                         which = tt == 1   # tier 2 reads no files now
                         if which.any():
                             t1s.update(np.asarray(x["a"])[which])
@@ -636,7 +556,7 @@ def _run_jax_ring(pars, out_fh, log, prec, dt, profile_dir,
                         maf1=maf[af], maf2=maf[pf])
                     tiers = (np.zeros(len(cat), np.uint8) if no_refine
                              else degenerate_tiers(
-                                 cat["f"], tier_prec,
+                                 cat["f"], prec,
                                  extra_nonfinite=(Dp, r2)))
                     t1, t2 = tiers == 1, tiers == 2
                     if tiers.any():

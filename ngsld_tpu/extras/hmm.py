@@ -1,6 +1,6 @@
 """Distance-aware 2-state HMM over SNP sequences (JAX, scan-based).
 
-TPU-native counterpart of the reference's vestigial HMM module
+Device counterpart of the reference's vestigial HMM module
 (/root/reference/shared/HMM.cpp — shipped with ngsLD for the sibling
 ngsF-HMM-style tools but not compiled into the binary, Makefile:5,14).
 Provides the same capability surface, redesigned around lax.scan:

@@ -43,15 +43,11 @@ class _StreamedGLLoader:
             return False
         return size == pars.n_sites * pars.n_ind * 3 * 8
 
-    def __init__(self, pars, np_dtype, touch=lambda: None, hold=None,
-                 stream_np=False):
+    def __init__(self, pars, np_dtype, stream_np=False):
         import queue
         import threading
         self._pars = pars
         self._dt = np_dtype
-        self._touch = touch
-        import contextlib
-        self._hold = hold or contextlib.nullcontext
         self._q = queue.Queue(maxsize=2)
         self._slabs = []
         self._err = []
@@ -115,9 +111,7 @@ class _StreamedGLLoader:
                 a = self._q.get()
                 if a is None:
                     return
-                with self._hold():
-                    self._slabs.append(jax.device_put(a))
-                self._touch()
+                self._slabs.append(jax.device_put(a))
         except BaseException as e:
             self._err.append(e)
             # drain so the reader never blocks on a full queue
@@ -171,14 +165,11 @@ class _StreamedTextLoader:
         except Exception:
             return False
 
-    def __init__(self, pars, np_dtype, touch=lambda: None, hold=None):
-        import contextlib
+    def __init__(self, pars, np_dtype):
         import queue
         import threading
         self._pars = pars
         self._dt = np_dtype
-        self._touch = touch
-        self._hold = hold or contextlib.nullcontext
         self._q = queue.Queue(maxsize=2)
         self._slabs = []
         self._err = []
@@ -246,9 +237,7 @@ class _StreamedTextLoader:
                 a = self._q.get()
                 if a is None:
                     return
-                with self._hold():
-                    self._slabs.append(jax.device_put(a))
-                self._touch()
+                self._slabs.append(jax.device_put(a))
         except BaseException as e:
             self._err.append(e)
             while self._q.get() is not None:  # unblock the reader
@@ -264,14 +253,13 @@ class _StreamedTextLoader:
                 if len(self._slabs) > 1 else self._slabs[0])
 
 
-def _ring_sharded_tables(pars, mesh, n_dev, B, Sp, np_dt, log,
-                         touch=lambda: None, hold=None):
+def _ring_sharded_tables(pars, mesh, n_dev, B, Sp, np_dt, log):
     """Site-sharded table load for --ring: stream each ADDRESSABLE device's
     B-row block straight from the GENO file and assemble the global
     (Sp, n_ind, 3) 'sites'-sharded array with
     jax.make_array_from_single_device_arrays — the global table is never
     materialized on any host. Host RSS is O(one block + one slab); on a
-    multi-host pod each process reads only its own devices' blocks (binary
+    multi-host cluster each process reads only its own devices' blocks (binary
     input seeks; text input is parsed once per host, discarding
     non-resident records as it goes).
 
@@ -285,11 +273,9 @@ def _ring_sharded_tables(pars, mesh, n_dev, B, Sp, np_dt, log,
     Reference parity: the load semantics per record match read_data.cpp
     13-116 via the same code paths the block engine's streamed loaders use.
     """
-    import contextlib
     import jax
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as PS
-    hold = hold or contextlib.nullcontext
 
     n, m = pars.n_sites, pars.n_ind
     # the mesh may carry an 'ind' axis (--ring --shard_ind): the table
@@ -315,9 +301,7 @@ def _ring_sharded_tables(pars, mesh, n_dev, B, Sp, np_dt, log,
         for q, d in mine_devs[k]:
             sl = buf if n_is == 1 else np.ascontiguousarray(
                 buf[:, q * I_loc:(q + 1) * I_loc])
-            with hold():
-                shards.append(jax.device_put(sl, d))
-            touch()
+            shards.append(jax.device_put(sl, d))
 
     def assemble(shards):
         return jax.make_array_from_single_device_arrays(
@@ -476,16 +460,12 @@ class _OverlapIngest:
     reference's nothing-printed-on-bad-input surface (read_data.cpp:44).
     """
 
-    def __init__(self, loader, pars, dt, pre_partial, touch=lambda: None,
-                 hold=None):
-        import contextlib
+    def __init__(self, loader, pars, dt, pre_partial):
         import threading
         self._loader = loader
         self._pars = pars
         self._dt = dt
         self._pre_partial = pre_partial
-        self._touch = touch
-        self._hold = hold or contextlib.nullcontext
         self.maf_host = np.empty(pars.n_sites, np.float64)
         self.failed = False
         self._err = None
@@ -512,21 +492,17 @@ class _OverlapIngest:
                         lax.dynamic_update_slice(eg, es, (off, z)),
                         lax.dynamic_update_slice(mf, ms, (off,)))
 
-            with self._hold():
-                gn = jnp.zeros((n, m, 3), self._dt)
-                eg = jnp.zeros((n, m), self._dt)
-                mf = jnp.zeros((n,), self._dt)
+            gn = jnp.zeros((n, m, 3), self._dt)
+            eg = jnp.zeros((n, m), self._dt)
+            mf = jnp.zeros((n,), self._dt)
             off = 0
             for slab in self._loader.np_slabs():
                 k = len(slab)
-                with self._hold():
-                    sd = jax.device_put(slab)
-                    gs, ms, es = pre(sd)
-                    gn, eg, mf = upd(gn, eg, mf, gs, es, ms,
-                                     np.int32(off))
-                    # the host pull synchronizes this slab's whole chain
-                    mh = np.array(ms, np.float64)
-                self._touch()
+                sd = jax.device_put(slab)
+                gs, ms, es = pre(sd)
+                gn, eg, mf = upd(gn, eg, mf, gs, es, ms, np.int32(off))
+                # the host pull synchronizes this slab's whole chain
+                mh = np.array(ms, np.float64)
                 self.maf_host[off:off + k] = mh
                 off += k
                 with self._cv:
@@ -555,7 +531,7 @@ class _OverlapIngest:
             return self._bufs
 
     def join_all(self):
-        """Wait for the whole table (strip mode / end-of-run error
+        """Wait for the whole table (end-of-run error
         surfacing); returns the final (gn, eg, maf) device tables."""
         self._thread.join()
         if self._err is not None:

@@ -1,12 +1,12 @@
 """Device mesh construction for the LD sweep.
 
 The reference's only parallelism is a pthread pool over anchor sites
-(ngsLD.cpp:154-186). The TPU-native replacement is a 2-D mesh:
+(ngsLD.cpp:154-186). The device replacement is a 2-D mesh:
 
   * 'pairs' — data parallelism over the flat banded pair plan (the
     embarrassingly-parallel axis; replaces the thread pool).
   * 'ind'   — model-parallel split of the individual axis: the EM's
-    per-individual reductions become psum collectives over ICI. Useful when
+    per-individual reductions become psum collectives. Useful when
     cohorts are large (individuals in the thousands) or when pair shards
     alone cannot fill the mesh.
 
@@ -38,8 +38,9 @@ def init_distributed(coordinator: str = None, num_processes: int = None,
                      process_id: int = None) -> None:
     """Multi-host bring-up (replaces: nothing — the reference is single-node).
 
-    Call once per host before building the mesh; jax.distributed wires the
-    hosts over DCN while the mesh collectives ride ICI within each slice.
+    Call once per host before building the mesh. Nothing in the
+    environment describes the cluster, so pass coordinator ("host:port"),
+    num_processes and process_id explicitly.
     """
     kw = {}
     if coordinator is not None:

@@ -7,7 +7,7 @@ so the table must stay sharded by site-block. The banded pair space then
 needs pairs (a, b) whose blocks live on DIFFERENT devices — the
 "cross-block halo exchange" of SURVEY.md §2.
 
-This module implements the TPU-native pattern for that exchange: a ring
+This module implements the device pattern for that exchange: a ring
 pass of partner blocks over the mesh (ring-attention topology without the
 softmax state — pair results are independent, ngsLD's band is a banded
 attention mask over the SNP sequence). At ring step t each device holds
@@ -124,9 +124,9 @@ def _device_compact(r2p, f, nit, nu, valid, cfg):
     """Device-side row compaction of one (B, B_sub) step tile by its
     emission mask (_tile_mask): gathers the surviving cells in row-major
     (a, pj) order and returns (fm (CAP, 5), im, cnt) with CAP = B*B_sub —
-    only [:cnt] rows ever leave the device, so host-link bytes scale with
-    LIVE pairs like the block engine's strip sweep (engine_block), not
-    with rectangle area. `cnt` cross-checks the host's mask replay.
+    only [:cnt] rows ever leave the device, so copied bytes scale with
+    LIVE pairs like the block engine's (engine_block), not with
+    rectangle area. `cnt` cross-checks the host's mask replay.
 
     Replaces the full-tile pull + host compact_tile of rounds 1-3: at the
     old 10-stat layout that pull cost ~52 B per rectangle CELL; this path
@@ -148,130 +148,6 @@ def _device_compact(r2p, f, nit, nu, valid, cfg):
         im = jnp.stack([nit_c.astype(idt),
                         nu.reshape(-1)[idx].astype(idt)], axis=1)
     return fm, im, cnt
-
-
-def ring_sweep_stepper_strip(mesh, n_ind: int, B: int, B_sub: int,
-                             ignore_miss_data: bool = False,
-                             extend_out: bool = True,
-                             interpret: bool = False,
-                             compact_cfg: dict | None = None):
-    """Strip-kernel variant of ring_sweep_stepper: the per-step
-    (B x B_sub) stat tile is computed by the Pallas strip kernel
-    (kernels/pallas_strip) instead of the XLA lax.map batch — the EM
-    iterates in VMEM with per-anchor early exit, and the in-kernel
-    [lo, hi) live bounds skip out-of-band cells' compute entirely (the
-    host still applies the authoritative masks at emission, exactly as
-    with the XLA stepper, so the output contract is unchanged).
-
-    Signature: fn(ga, ea, hi_g, ok_g, maf, vgb, veb, vmafb, vokb, t, si)
-    -> (stats, vgb', veb', vmafb', vokb'). ga (3, S, Ip) / ea (S, Ip)
-    are 'sites'-sharded on the site axis; hi_g/ok_g/maf are (S,) sharded;
-    the v* arrays are the VISITING partner strips in kernel layout
-    (vgb (3, Ip, S_sub) sharded on the lane axis, from
-    ring_subblock_taker_strip); t and si are traced i32 scalars (ring
-    step / sub-ring index), from which each device derives its partner
-    block's global origin — traced, so checkpoint fast-forwards stay
-    correct. Requires B % TA == 0 and B_sub % TB == 0 (engine rounds).
-
-    compact_cfg (see _device_compact) switches the output contract from
-    the full stats dict to device-compacted ((fm, im, cnt), carried...);
-    when cfg['sample'] the signature gains a trailing `bits` plane
-    ((n_dev, ceil(B*B_sub/32)) u32, 'sites'-sharded)."""
-    from ..kernels.pallas_strip import TA, TB, strip_em
-    n_dev = mesh.shape["sites"]
-    perm = [(k, (k - 1) % n_dev) for k in range(n_dev)]
-    assert B % TA == 0 and B_sub % TB == 0, (B, B_sub)
-    nk, nj = B // TA, B_sub // TB
-    ta = jnp.repeat(jnp.arange(nk, dtype=jnp.int32), nj)
-    tb = jnp.tile(jnp.arange(nj, dtype=jnp.int32), nk)
-
-    def local(ga, ea, hi_g, ok_g, maf, vgb, veb, vmafb, vokb, t, si,
-              bits=None):
-        idx = jax.lax.axis_index("sites")
-        a_glob = idx * B + jnp.arange(B)
-        org = ((idx + t) % n_dev) * B + si * B_sub
-        lo = (a_glob + 1 - org).astype(jnp.int32)
-        hi = (hi_g - org).astype(jnp.int32)
-        f, r2p, nit, nu = strip_em(
-            ga, vgb, ea, veb, maf, vmafb, lo, hi, ok_g, vokb, ta, tb,
-            n_ind=n_ind, ignore_miss=ignore_miss_data,
-            interpret=interpret)
-
-        # (n_tiles, ..., TA, TB) -> (B, B_sub) stat tiles
-        def rearrange(x):
-            if x.ndim == 4:   # f: (n, 4, TA, TB) -> (B, B_sub, 4)
-                y = x.reshape(nk, nj, 4, TA, TB)
-                return y.transpose(0, 3, 1, 4, 2).reshape(B, B_sub, 4)
-            y = x.reshape(nk, nj, TA, TB)
-            return y.transpose(0, 2, 1, 3).reshape(B, B_sub)
-
-        nxt = tuple(jax.lax.ppermute(v, "sites", perm)
-                    for v in (vgb, veb, vmafb, vokb))
-        if compact_cfg is not None:
-            valid = _tile_mask(idx, t, si, compact_cfg, hi_g, ok_g, vokb,
-                               bits[0] if bits is not None else None)
-            fm, im, cnt = _device_compact(
-                rearrange(r2p), rearrange(f), rearrange(nit),
-                rearrange(nu), valid, compact_cfg)
-            return (fm[None], im[None], cnt[None]), *nxt
-        fh = rearrange(f)
-        f2 = fh.reshape(-1, 4)
-        hmaf0, hmaf1, D, Dp, r2 = (v.reshape(B, B_sub)
-                                   for v in ld_stats(f2))
-        chi2 = (chi2_stat(f2).reshape(B, B_sub) if extend_out
-                else jnp.zeros((B, B_sub), jnp.float32))
-        out = dict(r2p=rearrange(r2p), f=fh,
-                   n_iter=rearrange(nit), n_used=rearrange(nu),
-                   hmaf1=hmaf0, hmaf2=hmaf1, D=D, Dp=Dp, r2=r2, chi2=chi2)
-        return out, *nxt
-
-    sA = P(None, "sites", None)     # ga (3, S, Ip)
-    sB = P(None, None, "sites")     # gb (3, Ip, S)
-    in_specs = [sA, P("sites", None), P("sites"), P("sites"), P("sites"),
-                sB, P(None, "sites"), P("sites"), P("sites"), P(), P()]
-    carried = (sB, P(None, "sites"), P("sites"), P("sites"))
-    if compact_cfg is not None:
-        res_spec = (P("sites", None, None), P("sites", None, None),
-                    P("sites"))
-        if compact_cfg["sample"]:
-            in_specs.append(P("sites", None))
-        out_specs = (res_spec, *carried)
-    else:
-        out_specs = ({k: (P("sites", None, None) if k == "f"
-                          else P("sites", None)) for k in _STAT_KEYS},
-                     *carried)
-    mapped = shard_map(
-        local, mesh=mesh,
-        in_specs=tuple(in_specs),
-        out_specs=out_specs,
-        check_vma=False)
-    return jax.jit(mapped)
-
-
-def ring_subblock_taker_strip(mesh, n_sub: int, si: int, offset: int = 0):
-    """Strip-layout analogue of ring_subblock_taker: jitted
-    fn(gb, eb, maf, ok) -> the si-th B_sub-lane sub-block of every
-    device's resident gb (3, Ip, S)/eb (Ip, S) strips plus the matching
-    maf/ok slices, optionally fast-forwarded `offset` ring positions."""
-    n_dev = mesh.shape["sites"]
-    perm = [(k, (k - offset) % n_dev) for k in range(n_dev)]
-
-    def local(gb, eb, maf, ok):
-        B_sub = gb.shape[2] // n_sub
-        lo = si * B_sub
-        out = (gb[:, :, lo:lo + B_sub], eb[:, lo:lo + B_sub],
-               maf[lo:lo + B_sub], ok[lo:lo + B_sub])
-        if offset % n_dev:
-            out = tuple(jax.lax.ppermute(v, "sites", perm) for v in out)
-        return out
-
-    sB = P(None, None, "sites")
-    mapped = shard_map(
-        local, mesh=mesh,
-        in_specs=(sB, P(None, "sites"), P("sites"), P("sites")),
-        out_specs=(sB, P(None, "sites"), P("sites"), P("sites")),
-        check_vma=False)
-    return jax.jit(mapped)
 
 
 def _tile_stats_ind_fn(ignore_miss_data: bool, extend_out: bool,

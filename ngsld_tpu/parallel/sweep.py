@@ -5,7 +5,7 @@ shard_map over a ('pairs', 'ind') mesh:
     reference's thread pool, ngsLD.cpp:159-186, mapped to devices);
   * the individual axis is split across 'ind'; every per-individual
     reduction in the EM (denominator counts, numerator sums, Pearson
-    moments) becomes a psum over ICI.
+    moments) becomes a psum across devices.
 
 The EM state f is replicated along 'ind' (each shard applies the identical
 update after the psum), so convergence decisions agree bitwise across

@@ -234,7 +234,7 @@ def degenerate_tiers(f: np.ndarray, prec: str,
             # trajectories (|dDp| up to 0.5; removed round 4). The band
             # extends to 1e-3 where the fuzz comparator's fragile cutoff
             # sits, so every denominator range is either repaired or
-            # asserted (VERDICT r3 item 5).
+            # asserted.
             tier[(np.abs(den_dp) < 1e-3) | (np.abs(den_r2) < 1e-6)
                  | (np.abs(D) < 2e-6)] = 2
         # exact-zero class, BOTH precisions: strict's value is inf/nan or

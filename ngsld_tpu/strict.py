@@ -4,7 +4,7 @@ This engine reproduces the reference binary's output byte-for-byte (after the
 thread-order sort the reference's own tests apply, examples/test.sh:16) and
 serves two roles:
 
-  1. The conformance oracle the fast TPU engine is validated against.
+  1. The conformance oracle the fast device engine is validated against.
   2. A usable `--engine strict` CLI engine for users who need exact
      reference-concordant numbers.
 

@@ -207,7 +207,7 @@ def _testsh_scale_config(ref_binary, tmp_path_factory, fmt, extra):
 
 def test_testsh_scale_default_config(ref_binary, tmp_path_factory):
     """ONE full-scale (24 x 10,000) byte-exact config runs in the DEFAULT
-    suite (VERDICT r3 item 7) — binary log-GL input, the kb-10 band, the
+    suite — binary log-GL input, the kb-10 band, the
     min_maf filter. The full 8-config matrix stays under `-m slow`."""
     _testsh_scale_config(ref_binary, tmp_path_factory, *MATRIX[2])
 

@@ -12,7 +12,7 @@ from ngsld_tpu.ops.em import pair_em
 from ngsld_tpu.ops.stats import ld_stats, pearson_r2
 from ngsld_tpu.parallel.mesh import make_mesh
 from ngsld_tpu.parallel.sweep import sweep_step
-from tests.test_pallas_em import _case
+from tests.test_em_kernel import _case
 
 
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2), (2, 4)])
@@ -306,7 +306,7 @@ def test_ring_binary_input_sharded_stream_matches_block_engine(tmp_path):
 def test_ring_sharded_load_host_memory_bounded(tmp_path):
     """The --ring loader must NOT materialize the table on the host: peak
     host (numpy/Python) allocations while streaming the sharded tables stay
-    far below the file size. Guards VERDICT weakness #1 (full-table load on
+    far below the file size. Guards against a full-table load on
     every host). Tests the loader directly — the sweep's compute is
     exercised elsewhere."""
     import tracemalloc
@@ -340,7 +340,7 @@ def test_ring_sharded_load_host_memory_bounded(tmp_path):
     assert raw  # binary fast path taken
     # old behavior: >= 2 full f64 copies (~79 MB); sharded stream: one
     # 2048-row f64 block buffer (~4.9 MB) + the read slab
-    assert peak < file_bytes, (peak, file_bytes)  # CPU backend aliases shard buffers (~table); TPU frees them post-upload. Old path: >= 2 full copies.
+    assert peak < file_bytes, (peak, file_bytes)  # CPU backend aliases shard buffers (~table). Old path: >= 2 full copies.
     # and the table content must be exactly the raw file records
     ref = np.fromfile(files["glf"], np.float64).reshape(n, m, 3)
     got = np.asarray(gl_d)[:n]
@@ -378,8 +378,7 @@ def test_ring_text_sharded_load_matches_strict(tmp_path):
 
 def test_ring_emit_merge_chunking_invariant(tmp_path, monkeypatch):
     """The bounded-memory spill merge must produce byte-identical output
-    whatever the anchor-chunk budget (guards VERDICT weakness #2: emission
-    no longer buffers all rows in RAM, so correctness must not depend on
+    whatever the anchor-chunk budget (emission no longer buffers all rows in RAM, so correctness must not depend on
     the chunk boundaries)."""
     from ngsld_tpu.cli import params_from_args
     from ngsld_tpu.engine import run_jax
@@ -405,8 +404,7 @@ def test_run_jax_shard_ind_matches_single(tmp_path):
     """--shard_ind: the ('pairs','ind') 2-D mesh path (per-individual EM
     reductions as psums over the 'ind' axis) must reproduce the 1-device
     engine's pair set exactly and its values to reduction-order
-    tolerance (VERDICT round-1 item 5: the large-cohort mesh axis is now
-    reachable from the CLI)."""
+    tolerance (the large-cohort mesh axis is reachable from the CLI)."""
     from ngsld_tpu.cli import params_from_args
     from ngsld_tpu.engine import run_jax
     from ngsld_tpu.utils.simulate import simulate, write_all
@@ -491,14 +489,50 @@ def test_ring_with_shard_ind_matches_strict(tmp_path):
            [r.split("\t")[:2] for r in s]
 
 
+def _cmp_vs_strict(s_lines, r_lines, min_rows):
+    """Shared column comparison: pair set byte-exact, values f32-grade.
+
+    Near-degenerate hap-MAF denominators amplify both the engines'
+    SHARED 1e-5 EM stop tolerance and the derive rounding, so Dp/r2
+    (cols 5, 6) carry a denominator-scaled tolerance below 1e-3 —
+    2e-3 + 6e-6/den, the tier-2 derive-only repair's measured bound at
+    ~10x margin (test_refine.test_derive_only_band_bound) — so no
+    denominator range is unasserted . chi2 (col 16)
+    stays excluded below 1e-3: its expected-count denominators make it
+    stop-point-dependent across ANY two implementations; the exact-zero
+    tier's byte equality is pinned by test_refine / conformance."""
+    assert len(s_lines) == len(r_lines) > min_rows
+    for a, b in zip(s_lines[1:], r_lines[1:]):
+        fa, fb = a.split("\t"), b.split("\t")
+        assert fa[:3] == fb[:3]
+        hap = [float(v) for v in fa[10:14]]
+        m0, m1 = 1 - (hap[0] + hap[1]), 1 - (hap[0] + hap[2])
+        den = min(abs(m0 * m1), abs((1 - m0) * (1 - m1)),
+                  abs(m0 * (1 - m1)), abs((1 - m0) * m1))
+        fragile = den < 1e-3
+        for c in range(3, len(fa)):
+            if fragile and c == 16:
+                continue
+            tol = 2e-3
+            if fragile and c in (5, 6):
+                tol = 2e-3 + 6e-6 / max(den, 1e-12)
+            x, y = float(fa[c]), float(fb[c])
+            if c == 18:
+                assert abs(x - y) <= 2, (a, b)
+                continue
+            if not (np.isfinite(x) and np.isfinite(y)):
+                assert x == y or (np.isnan(x) and np.isnan(y)), (c, a, b)
+                continue
+            assert abs(x - y) <= tol, (c, den, a, b)
+
+
 @pytest.mark.parametrize("seed", [101, 202, 303])
 def test_ring_fuzz_configs(tmp_path, monkeypatch, seed):
     """Randomized flag-combination fuzz through the RING engine vs the
     strict oracle: band kinds, sampling (packed-bits plane), min_maf,
-    genotype calling, ignore_miss (wide im), sub-ring counts, the
-    2-D ('sites','ind') mesh, and the forced strip stepper — the pair
-    SET must match exactly (device compaction replays the host mask),
-    values to f32/f64 grade."""
+    genotype calling, ignore_miss (wide im), sub-ring counts and the
+    2-D ('sites','ind') mesh — the pair SET must match exactly (device
+    compaction replays the host mask), values to f32/f64 grade."""
     from ngsld_tpu import strict
     from ngsld_tpu.cli import params_from_args
     from ngsld_tpu.engine import run_jax
@@ -528,11 +562,6 @@ def test_ring_fuzz_configs(tmp_path, monkeypatch, seed):
         ring += ["--shard", "4", "--shard_ind", "2"]
     else:
         ring += ["--shard", "0"]
-        if rng.random() < 0.4:
-            monkeypatch.setenv("NGSLD_FORCE_STRIP", "1")
-            if rng.random() < 0.5:   # streamed strip stepper
-                monkeypatch.setenv("NGSLD_STRIP_STREAM", "1")
-                monkeypatch.setenv("NGSLD_STRIP_IC", "16")
     s_out, r_out = tmp_path / "s.ld", tmp_path / "r.ld"
     strict.run(params_from_args(argv + ["--engine", "strict",
                                         "--out", str(s_out)]))
@@ -541,7 +570,6 @@ def test_ring_fuzz_configs(tmp_path, monkeypatch, seed):
     # f32-grade, Dp/r2/chi2 excluded in the fragile band (tiny hap-MAF
     # denominators make those ratios stop-point-dependent across ANY two
     # EM implementations; see refine.degenerate_tiers' derivation)
-    from test_pallas_strip import _cmp_vs_strict
     _cmp_vs_strict(s_out.read_text().splitlines(),
                    r_out.read_text().splitlines(), 30)
 
@@ -549,7 +577,7 @@ def test_ring_fuzz_configs(tmp_path, monkeypatch, seed):
 def test_ring_narrow_band_autoroutes_to_block(tmp_path, monkeypatch,
                                               capfd):
     """--ring on a band that fits inside one ring step's partner
-    sub-block auto-routes to the block engine (VERDICT r3 item 6): the
+    sub-block auto-routes to the block engine: the
     output must be byte-identical to a plain block-engine run, and the
     log must say so. An explicit --ring_sub disables the reroute."""
     from ngsld_tpu.cli import params_from_args
@@ -602,41 +630,3 @@ def test_ring_wide_band_stays_on_ring(tmp_path, monkeypatch, capfd):
     run_jax(params_from_args(argv + ["--out", str(out)]))
     assert "auto-route" not in capfd.readouterr().err
     assert len(out.read_text().splitlines()) == 1 + 64 * 63 // 2
-
-
-def test_strip_sweep_shard_ind_matches_gather(tmp_path, monkeypatch):
-    """--shard_ind with a DENSE plan keeps the strip sweep (VERDICT r4
-    item 6): the ('pairs','ind') strip path (parallel.strip_ind — XLA
-    rectangle step, per-iteration psum over 'ind') must reproduce the
-    2-D gather path's pair set exactly and its values to cross-kernel
-    tolerance (f ~3e-5; printed at 6 dp, so columns compare at 1e-4 with
-    knife-edge rows excluded the usual way)."""
-    from ngsld_tpu.cli import params_from_args
-    from ngsld_tpu.engine import run_jax
-    from ngsld_tpu.utils.simulate import simulate, write_all
-
-    sim = simulate(n_ind=16, n_sites=256, seed=62, contig_kb=50.0)
-    files = write_all(sim, str(tmp_path / "fix"))
-    argv = ["--geno", files["beagle"], "--probs", "--n_ind", "16",
-            "--n_sites", "256", "--pos", files["pos"], "--max_kb_dist",
-            "0", "--extend_out", "--chunk_pairs", "4096", "--verbose",
-            "0", "--shard", "2", "--shard_ind", "4"]
-    outs = []
-    for strip in ("1", "0"):
-        monkeypatch.setenv("NGSLD_BLOCK_STRIP", strip)
-        out = tmp_path / f"o{strip}.ld"
-        run_jax(params_from_args(argv + ["--out", str(out)]))
-        outs.append(out.read_text().splitlines())
-    strip_rows, gather_rows = outs
-    assert len(strip_rows) == len(gather_rows) > 2000
-    for a, b in zip(strip_rows[1:], gather_rows[1:]):
-        fa, fb = a.split("\t"), b.split("\t")
-        assert fa[:3] == fb[:3]          # identical pair set + dist
-        for c in range(3, len(fa)):
-            x, y = float(fa[c]), float(fb[c])
-            if not (np.isfinite(x) and np.isfinite(y)):
-                assert not (np.isfinite(x) or np.isfinite(y))
-                continue
-            # different kernels, different reduction orders; knife-edge
-            # Dp/chi2 rows are tier-refined identically on both paths
-            assert abs(x - y) <= 2e-4, (c, a, b)

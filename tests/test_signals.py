@@ -111,23 +111,3 @@ def test_signal_handlers_restored(tmp_path):
         assert signal.getsignal(signal.SIGINT) != before
         assert not gs.stopped
     assert signal.getsignal(signal.SIGINT) == before
-
-
-def test_keepalive_lifecycle(monkeypatch):
-    import threading
-
-    from ngsld_tpu.utils.keepalive import DeviceKeepalive
-
-    with DeviceKeepalive(interval=0.05) as ka:
-        if ka._thread is not None:
-            assert ka._thread.is_alive()
-            t = ka._thread
-        else:
-            t = None
-    if t is not None:
-        t.join(timeout=2)
-        assert not t.is_alive()
-
-    monkeypatch.setenv("NGSLD_DEVICE_KEEPALIVE", "0")
-    with DeviceKeepalive(interval=0.05) as ka:
-        assert ka._thread is None
